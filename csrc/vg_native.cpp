@@ -1,7 +1,7 @@
 // Native host runtime for versatiles_glyphs_tpu.
 //
-// The reference implements its entire host pipeline in Rust; the TPU
-// build keeps the device path in Pallas/XLA and implements the
+// The reference implements its entire host pipeline in Rust; this
+// build keeps the device path in JAX (XLA and Pallas) and implements the
 // performance-relevant host stages natively here, exposed through a
 // plain C ABI consumed via ctypes (proto/native.py):
 //
@@ -13,8 +13,8 @@
 //    exact octal/checksum layout (/root/reference/src/writer/tar.rs).
 //  - vg_render_sdf_batch: multithreaded float64 brute-force SDF
 //    renderer — bit-identical to ops/sdf_ref.py (same IEEE operations
-//    in the same per-pixel order), used as the CPU fallback and as the
-//    reference-equivalent baseline bench.py compares the TPU against.
+//    in the same per-pixel order), used as the CPU renderer and as the
+//    reference-equivalent baseline the device path is checked against.
 //
 // Build: csrc/Makefile (g++ -O3 -shared); loaded lazily, with the
 // pure-Python implementations as always-available fallbacks.

@@ -10,7 +10,7 @@ echo "== lint (scripts/lint.py)"
 python scripts/lint.py
 
 echo "== byte-compile"
-python -m compileall -q versatiles_glyphs_tpu tests scripts bench.py __graft_entry__.py
+python -m compileall -q versatiles_glyphs_tpu tests scripts __graft_entry__.py chip_smoke.py
 
 echo "== native build (csrc)"
 g++ -O3 -fPIC -shared -std=c++17 -pthread -Wall -Wextra \
@@ -19,10 +19,10 @@ rm -f /tmp/vg_native_check.so
 
 if [[ "${1:-}" == "--full" ]]; then
   echo "== full test suite"
-  python -m pytest tests/ -q
+  JAX_PLATFORMS=cpu python -m pytest tests/ -q
 else
   echo "== fast test subset"
-  python -m pytest -q \
+  JAX_PLATFORMS=cpu python -m pytest -q \
     tests/test_geometry.py tests/test_flatten.py tests/test_names.py \
     tests/test_pbf.py tests/test_writer.py tests/test_index.py \
     tests/test_font.py tests/test_native.py tests/test_cff.py \

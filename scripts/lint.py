@@ -17,7 +17,7 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TARGETS = ["versatiles_glyphs_tpu", "tests", "scripts", "bench.py", "__graft_entry__.py"]
+TARGETS = ["versatiles_glyphs_tpu", "tests", "scripts", "__graft_entry__.py", "chip_smoke.py"]
 
 
 def iter_files():

@@ -122,8 +122,7 @@ class _FakePrep:
 
 def test_lpt_multiround_balance_realistic_mix():
     """k>1 rounds (the case that threatens the ≥85% scaling target on
-    big workloads, VERDICT r04 ask 5): a workload above the SMEM lane
-    caps, with tile/lane distributions shaped like the measured full
+    big workloads): a workload above the group lane caps, with tile/lane distributions shaped like the measured full
     Noto set (tiles p50=2, p99=5, max=11; lanes lognormal, mean ~500),
     must stay ≥90% tile-balanced on EVERY round including the tail."""
     rng = np.random.default_rng(7)

@@ -1,4 +1,4 @@
-"""CFF/OTF end-to-end coverage (VERDICT item 5).
+"""CFF/OTF end-to-end coverage.
 
 The reference accepts .otf via ttf-parser (`/root/reference/src/render/
 renderer.rs:109-111`, `src/commands/recurse.rs:106-108`); here CFF
@@ -32,8 +32,8 @@ def twins():
 def test_otf_fast_path(twins):
     ttf, otf = twins
     # CFF fonts have no glyf table but get their own native fast path
-    # (vg_cff_rings) — both twins reach vectorized cores (VERDICT r02
-    # item 6: OTF host prep parity with TTF).
+    # (vg_cff_rings) — both twins reach vectorized cores (OTF host
+    # prep parity with TTF).
     assert otf._glyf_raw is None
     from versatiles_glyphs_tpu.proto import native
 
@@ -268,7 +268,7 @@ def test_native_cff_malformed_draw_before_move_falls_back(twins):
     """A drawing op with no open ring (rlineto before any moveto) is
     malformed Type 2; the native interpreter must reject the glyph
     (pen fallback) rather than render partially-dropped geometry
-    (ADVICE r03: CubicSink silently returned)."""
+    (CubicSink once silently returned)."""
     from fontTools.ttLib import TTFont
 
     from versatiles_glyphs_tpu.proto import native
@@ -293,7 +293,7 @@ def test_native_cff_malformed_draw_before_move_falls_back(twins):
 def test_cff2_vectorized_cores_match_ttf():
     """CFF2 fonts have no native parser; they must still reach the
     vectorized cores via the pen-walked flat arrays (`_pen_flat`) and
-    render identically to the TTF twin (VERDICT r03 missing #3)."""
+    render identically to the TTF twin."""
     from versatiles_glyphs_tpu.utils.synth_font import build_otf2
 
     ttf = FontFileEntry(build_ttf(N_GLYPHS, FIRST_CP, family="Two Sans"))
@@ -303,7 +303,7 @@ def test_cff2_vectorized_cores_match_ttf():
     assert cores is not None
     assert all(v is not None for v in cores.values())
 
-    r = Renderer("tpu")
+    r = Renderer("device")
     for cp in range(FIRST_CP, FIRST_CP + N_GLYPHS):
         pt = r.prep_glyph(ttf, cp)
         po = r.prep_glyph(otf2, cp)

@@ -1,4 +1,4 @@
-"""Error-path hardening tests (VERDICT item 6) — each failure mode the
+"""Error-path hardening tests — each failure mode the
 reference handles with a clean contextual error must not produce a raw
 traceback here: bad font bytes (`wrapper.rs:137-146`), corrupt pbf in
 debug (`debug.rs:202-219`), overlong tar entry name through the

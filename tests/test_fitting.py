@@ -82,7 +82,7 @@ def test_checkpoint_roundtrip(tmp_path, fit_batch):
     fitter = FontFitter(depth=2)
     params, opt_state, dev_batch = fitter.init(fit_batch)
     params, opt_state, _ = fitter.step(params, opt_state, dev_batch)
-    path = str(tmp_path / "ckpt")
+    path = str(tmp_path / "ckpt.npz")
     FontFitter.save_checkpoint(path, params, opt_state)
     fresh_p, fresh_o, _ = FontFitter(depth=2).init(fit_batch)
     params2, opt_state2 = FontFitter.restore_checkpoint(path, like=(fresh_p, fresh_o))
@@ -95,8 +95,8 @@ def test_checkpoint_roundtrip(tmp_path, fit_batch):
 
 
 def test_fit_cli_end_to_end(tmp_path):
-    """`fit` CLI over 2 codepoints x 10 steps: the npz/orbax/history
-    output contract (cli.py cmd_fit)."""
+    """`fit` CLI over 2 codepoints x 10 steps: the fitted/checkpoint/
+    history output contract (cli.py cmd_fit)."""
     import io
     import json
     import os
@@ -121,10 +121,16 @@ def test_fit_cli_end_to_end(tmp_path):
     assert data["translate"].shape == (2, 2)
     assert data["log_gain"].shape == ()  # global sharpness gain
 
-    # orbax checkpoint restores to the same params.
-    from versatiles_glyphs_tpu.models.fitting import FontFitter
+    # The checkpoint restores to the same params.
+    from versatiles_glyphs_tpu.font.entry import FontFileEntry
+    from versatiles_glyphs_tpu.models.fitting import FontFitter, make_fit_batch
 
-    params, opt_state = FontFitter.restore_checkpoint(str(out / "checkpoint"))
+    with open(FIRA, "rb") as f:
+        batch = make_fit_batch(FontFileEntry(f.read()), [110, 111], depth=2)
+    like = FontFitter(depth=2).init(batch)[:2]
+    params, opt_state = FontFitter.restore_checkpoint(
+        str(out / "checkpoint.npz"), like=like
+    )
     np.testing.assert_allclose(
         np.asarray(params["curves"]), data["curves"], rtol=0, atol=0
     )
@@ -134,7 +140,7 @@ def test_fit_cli_end_to_end(tmp_path):
     steps = [h["step"] for h in hist]
     assert steps == sorted(steps) and steps[-1] == 9
     assert all(np.isfinite(h["loss"]) for h in hist)
-    assert os.path.isdir(out / "checkpoint")
+    assert os.path.isfile(out / "checkpoint.npz")
 
 
 def test_step_many_matches_sequential(fit_batch):
@@ -156,7 +162,7 @@ def test_step_many_matches_sequential(fit_batch):
 
 
 def test_fitted_render_matches_reference_at_init(fira_entry):
-    """Identity round trip (VERDICT r04 ask 2): rendering the UNFITTED
+    """Identity round trip: rendering the UNFITTED
     parameters (init = the font's own outlines) through the production
     pipeline must reproduce the reference bitmaps up to the fixed-depth
     chord approximation — advance exact, left/top within ±1, bitmap
@@ -267,7 +273,7 @@ def test_fit_render_cli_roundtrip(tmp_path):
 
 
 def test_fit_cli_resume(tmp_path):
-    """`fit --resume` continues from the orbax checkpoint: two 5-step
+    """`fit --resume` continues from the checkpoint: two 5-step
     runs (the second resumed) must land exactly where one 10-step run
     does (same params, same loss trajectory tail)."""
     import io
@@ -286,7 +292,7 @@ def test_fit_cli_resume(tmp_path):
     main(
         base + [
             "--steps", "5", "-o", str(out5b),
-            "--resume", str(out5a / "checkpoint"),
+            "--resume", str(out5a / "checkpoint.npz"),
         ],
         stdout=io.StringIO(),
     )

@@ -1,7 +1,7 @@
 """Mesh-sharded production render: parity vs the single-device path.
 
-Runs on the conftest's 8-virtual-CPU-device mesh (the multi-chip test
-harness; the kernel is the jnp twin off-TPU). The sharded path is the
+Runs on the conftest's 8-virtual-CPU-device mesh (the multi-device
+test harness; the tile field is the plain reference on a CPU). The sharded path is the
 device-mesh equivalent of the reference's rayon fan-out over the flat
 block list (`/root/reference/src/font/manager.rs:102-121`), so parity
 here is the analogue of its single-thread-vs-parallel determinism.
@@ -17,7 +17,7 @@ from versatiles_glyphs_tpu.utils.synth_font import build_ttf
 def _fira_preps(fira_entry, lo=33, hi=126):
     from versatiles_glyphs_tpu.render.driver import Renderer
 
-    r = Renderer("tpu")
+    r = Renderer("device")
     preps = []
     for cp in range(lo, hi + 1):
         p = r.prep_glyph(fira_entry, cp)
@@ -40,7 +40,7 @@ def test_mesh_parity_driver(fira_entry):
 
     preps = _fira_preps(fira_entry)
     assert len(preps) >= 90
-    r = Renderer("tpu")
+    r = Renderer("device")
     serial = r.render_bitmaps(preps, parallel=False)
     sharded = r.render_bitmaps(preps, parallel=True)
     assert len(serial) == len(sharded)
@@ -52,7 +52,7 @@ def test_mesh_parity_f32_transport(fira_entry):
     from versatiles_glyphs_tpu.render.driver import Renderer
 
     preps = _fira_preps(fira_entry, 48, 90)
-    r = Renderer("tpu", transport="f32")
+    r = Renderer("device", transport="f32")
     serial = r.render_bitmaps(preps, parallel=False)
     sharded = r.render_bitmaps(preps, parallel=True)
     for a, b in zip(serial, sharded):
@@ -76,7 +76,7 @@ def test_mesh_manager_path(tmp_path):
         manager = FontManager(parallel=parallel)
         manager.add_path(os.fspath(font_path))
         writer = Writer.new_file(os.fspath(root))
-        manager.render_glyphs(writer, Renderer("tpu"))
+        manager.render_glyphs(writer, Renderer("device"))
         manager.write_index_json(writer)
         manager.write_families_json(writer)
         writer.finish()
@@ -100,7 +100,7 @@ def test_mesh_uneven_and_small_batches(fira_entry):
     from versatiles_glyphs_tpu.render.driver import Renderer
 
     preps = _fira_preps(fira_entry, 33, 70)
-    r = Renderer("tpu")
+    r = Renderer("device")
     for n in (3, 16, 17, 29):
         sub = preps[:n]
         serial = r.render_bitmaps(sub, parallel=False)
@@ -116,7 +116,7 @@ def test_mesh_exact_golden(fira_entry):
     from versatiles_glyphs_tpu.render.driver import Renderer
 
     preps = _fira_preps(fira_entry, 65, 90)
-    r = Renderer("tpu")
+    r = Renderer("device")
     sharded = r.render_bitmaps(preps, parallel=True)
     for p, bm in zip(preps, sharded):
         ref = render_sdf_exact(p.segments, p.width, p.height, p.x0, p.y0)

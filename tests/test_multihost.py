@@ -1,4 +1,4 @@
-"""Multi-host partitioning (VERDICT item 7): the per-process block
+"""Multi-host partitioning: the per-process block
 assignment is deterministic, disjoint, covering, and balanced; a
 simulated multi-host run writes disjoint per-host file sets whose union
 equals the single-host output, with the index JSONs written once."""

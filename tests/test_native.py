@@ -158,9 +158,9 @@ def test_native_font_index_matches_fonttools():
 
     from fontTools.ttLib import TTFont
 
-    import conftest as C
-
-    paths = [C.FIRA] + sorted(glob.glob(os.path.join(C.NOTO_DIR, "*.ttf")))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = sorted(glob.glob(os.path.join(repo, "testdata", "dejavu", "*.ttf")))
+    assert len(paths) == 6
     checked = 0
     for path in paths:
         with open(path, "rb") as f:
@@ -198,4 +198,4 @@ def test_native_font_index_matches_fonttools():
         want = np.array([hmtx[order[g]][0] for g in range(num_g)], np.uint16)
         np.testing.assert_array_equal(adv[:num_g], want, err_msg=path)
         checked += 1
-    assert checked >= 1  # at least Fira must take the native path
+    assert checked == 6  # every DejaVu face takes the native path

@@ -81,7 +81,7 @@ def test_encode_block_from_preps_byte_identical():
     if not native.available():
         pytest.skip("native library unavailable")
     entry = FontFileEntry(build_ttf(10, 60, family="Enc Sans"))
-    r = Renderer("tpu")
+    r = Renderer("device")
     preps = [p for cp in entry.metadata.codepoints
              if (p := r.prep_glyph(entry, cp)) is not None]
     nonempty = [p for p in preps if not p.empty]

@@ -1,7 +1,7 @@
 """FontManager: the top-level render scheduler.
 
 Mirrors `/root/reference/src/font/manager.rs` structurally, with the
-parallelism re-shaped for TPU: where the reference fans the flat block
+parallelism re-shaped for a device: where the reference fans the flat block
 task list over a rayon thread pool with a Mutex-guarded writer
 (`manager.rs:102-121`), this manager batches each block into one device
 call (the device's internal grid is the fine-grained parallelism) and
@@ -25,7 +25,7 @@ class FontManager:
     def __init__(self, parallel: bool = True):
         """``parallel`` mirrors `FontManager::new(parallel)`
         (`manager.rs:28`): True shards the batched device render across
-        every attached chip (`parallel.mesh.data_mesh`); False forces
+        every attached device (`parallel.mesh.data_mesh`); False forces
         the single-device path (the reference's `--single-thread`)."""
         self.fonts: dict[str, FontWrapper] = {}
         self.parallel = parallel
@@ -79,7 +79,7 @@ class FontManager:
            host-side reshaping of the reference's rayon overlap,
            `manager.rs:117-121`);
         2. the main thread drains the queue into an incremental render
-           session (which dispatches SMEM-sized device groups as they
+           session (which dispatches device groups as they
            fill and starts their async fetches — uploads, kernels and
            result transfers all overlap);
         3. per-block PBF assembly + write, consuming bitmaps from the
@@ -210,7 +210,7 @@ class FontManager:
 
     def _is_index_host(self) -> bool:
         """Only process 0 writes the run-global index files on a
-        multi-host slice (they are identical everywhere; writing them
+        multi-host cluster (they are identical everywhere; writing them
         once keeps the per-host file sets disjoint)."""
         import jax
 

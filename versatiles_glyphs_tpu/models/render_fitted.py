@@ -136,15 +136,13 @@ def fitted_preps(params, batch, entry, depth: int) -> list[GlyphPrep]:
         if not mask.any():
             continue  # mesh padding row / empty glyph
         cp = int(cps[b])
-        name = entry.glyph_name(cp)
-        adv_units = entry.hor_advance(name) if name is not None else 0
         preps.append(
             fitted_prep(
                 cp,
                 curves[b][mask],
                 translate[b],
                 depth,
-                adv_units,
+                entry.advance_units(cp),
                 entry.units_per_em,
             )
         )

@@ -1,32 +1,20 @@
-"""Differentiable Pallas SDF: fused forward + custom-VJP backward kernels.
+"""Differentiable SDF over the flat point-chain layout.
 
 The fitting path (`models/`) needs gradients of the per-pixel signed
 distance w.r.t. the segment soup — the differentiable core of the
 reference hot loop (`/root/reference/src/render/renderer_precise.rs:8-84`,
 whose distance and crossing positions are piecewise-smooth in the
-control points). Three generations live here, each the test oracle for
-the next:
+control points).
 
-1. (r01, `models/glyph_model.sdf_field`) XLA autodiff of the jnp pair
-   tensor — materializes [P, S] twice under reverse mode.
-2. (r02, `signed_field_pallas`) padded-layout custom-VJP kernel pair:
-   forward emits O(P) residuals (min-d², winding, argmin lane), a
-   hand-written backward re-evaluates pair terms segment-major. No
-   [P, S] tensor in HBM, but every glyph pays batch-max segments ×
-   batch-max pixels.
-3. (r03, `signed_field_flat` — the production path) the FLAT
-   point-chain/tile-table layout of the render kernel
-   (`ops/sdf_pallas._sdf_kernel_tiles_pts_min` as the argmin/winding
-   oracle). Off-TPU, the reverse pass is an O(P) envelope-theorem
-   recompute at the argmin segment (gather → pair math → scatter
-   transpose, plain XLA). On TPU those element gathers/scatters run
-   on the scalar core (~25-30 ns/element — 10× the forward kernel on
-   full fonts), so a custom VJP routes the reduction through
-   `_bwd_kernel_flat`, which re-evaluates pair terms on the VPU over
-   the forward's tile table and accumulates per-lane cotangent sums
-   into VMEM-resident outputs (see `docs/kernel_roofline.md`).
+`signed_field_flat` factors the field so that no O(P·S) work is ever
+differentiated: the tile field in residual mode (`ops.tiles.min_field`
+— the Hopper kernel on a GPU, `min_field_pts_jax` on a CPU) is only an
+ORACLE for the argmin lane and the winding number; the value and its
+gradient come from an O(P) recompute at the argmin segment (gather →
+pair math → scatter-add in reverse mode), in the exact op order of the
+tile field, so the recomputed d² equals the oracle's bitwise.
 
-Gradient semantics (a.e. exact, matching the jnp path):
+Gradient semantics (a.e. exact, matching the jnp model path):
 
 - distance: by the envelope theorem the clamped projection parameter
   ``tc`` is locally constant at the optimum, so with ``q = p − (v +
@@ -35,397 +23,55 @@ Gradient semantics (a.e. exact, matching the jnp path):
   reverse-mode produces through the full ``t = (e·d)/|d|²`` chain
   (whose extra term carries ``q·(w−v) = 0`` at interior optima).
 - min over segments: subgradient to the **first argmin lane** (the
-  forward kernel records it), instead of `jnp.min`'s even tie split.
-  Exact float ties across *differently computed* pair terms are
-  measure-zero; where they do occur (a shared ring vertex as nearest
-  point) the two conventions agree after chaining to the shared point.
-- winding sign: piecewise constant → zero gradient (`stop_gradient`
-  in the caller), exactly like the jnp path.
-
-Layouts mirror `ops/sdf_pallas.py`: pixels ride sublanes as (TP, 1)
-columns, segment chunks ride lanes as (1, SC) rows, pair math is fused
-(TP, SC) f32 VPU work. The backward grid transposes the loop nest —
-programs own segment chunks and loop pixel tiles, accumulating (1, SC)
-row cotangents — so no atomic scatter is ever needed.
+  oracle records it), instead of `jnp.min`'s even tie split. Exact
+  float ties across *differently computed* pair terms are measure-zero;
+  where they do occur (a shared ring vertex as nearest point) the two
+  conventions agree after chaining to the shared point.
+- winding sign: piecewise constant → zero gradient, exactly like the
+  jnp path.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .sdf_pallas import SC, _BIG, _BIGI
-
-# Pixels per forward program / per backward inner iteration. 1024 =
-# 8 sublane rows of 128 lanes — the smallest f32 tile the Mosaic
-# lowering accepts as an output block row count (sublane dim must be a
-# multiple of 8), and still fine-grained enough for fit workloads
-# (typical glyph bitmaps are 400–2000 px).
-TP = 1024
-
-# _BIGI (i32 max, the all-masked argmin sentinel) is imported from
-# sdf_pallas: the oracle kernels there produce the values compared
-# against here, so the constant must be ONE definition.
-
-
-def _pixel_coords(x0, y0, w, h, base, tp: int):
-    """(TP, 1) pixel-center coords + validity for flat pixel indices
-    ``base + [0, tp)`` of a w×h bitmap in PBF (Y-flipped) order. Uses
-    the f32-division decomposition (exact for w·h < 2²³; see
-    `docs/kernel_roofline.md`)."""
-    i = base + jax.lax.broadcasted_iota(jnp.int32, (tp, 1), 0)
-    ws = jnp.maximum(w, 1)
-    fws = ws.astype(jnp.float32)
-    row = jnp.floor((i.astype(jnp.float32) + 0.5) / fws).astype(jnp.int32)
-    x = i - row * ws
-    y = h - 1 - row
-    pxc = x0.astype(jnp.float32) + x.astype(jnp.float32) + 0.5
-    pyc = y0.astype(jnp.float32) + y.astype(jnp.float32) + 0.5
-    valid = i < w * h
-    return pxc, pyc, valid
-
-
-def _pair_terms(pxc, pyc, vx, vy, wx, wy):
-    """The shared (TP, SC) projection terms: clamped parameter ``tc``,
-    residual ``q``, squared distance ``d2`` — the reference projection
-    (`segment.rs:54-72`) in f32, identical op order in both kernels."""
-    dx = wx - vx
-    dy = wy - vy
-    l2 = dx * dx + dy * dy
-    l2inv = jnp.where(l2 > 0.0, 1.0 / l2, 0.0)
-    ex = pxc - vx
-    ey = pyc - vy
-    num = ex * dx + ey * dy
-    t = num * l2inv
-    tc = jnp.clip(t, 0.0, 1.0)
-    qx = ex - tc * dx
-    qy = ey - tc * dy
-    d2 = qx * qx + qy * qy
-    return tc, qx, qy, d2, ex, ey, dx, dy
-
-
-def _fwd_kernel(meta_ref, segc_ref, mask_ref, d2_ref, wn_ref, am_ref, *, sp: int):
-    """Forward: grid (B, Pp//TP). Residual outputs per pixel: min d²,
-    winding number, first-argmin lane index."""
-    b = pl.program_id(0)
-    pt = pl.program_id(1)
-    x0 = meta_ref[b, 0]
-    y0 = meta_ref[b, 1]
-    w = meta_ref[b, 2]
-    h = meta_ref[b, 3]
-    base = pt * TP
-
-    pxc, pyc, _valid = _pixel_coords(x0, y0, w, h, base, TP)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, SC), 1)
-
-    def body(c, carry):
-        dmin, amin, wn = carry
-        off = c * SC
-        vx = segc_ref[0, 0:1, pl.ds(off, SC)]
-        vy = segc_ref[0, 1:2, pl.ds(off, SC)]
-        wx = segc_ref[0, 2:3, pl.ds(off, SC)]
-        wy = segc_ref[0, 3:4, pl.ds(off, SC)]
-        ok = mask_ref[0, 0:1, pl.ds(off, SC)] != 0.0
-
-        tc, qx, qy, d2, ex, ey, dx, dy = _pair_terms(pxc, pyc, vx, vy, wx, wy)
-        d2 = jnp.where(ok, d2, _BIG)
-
-        # Chunk min + first-argmin lane, then merged into the carry
-        # (strictly-less keeps the first lane on cross-chunk ties).
-        m = jnp.min(d2, axis=1, keepdims=True)
-        li = jnp.min(
-            jnp.where(d2 == m, off + lane, _BIGI), axis=1, keepdims=True
-        ).astype(jnp.int32)
-        better = m < dmin
-        amin = jnp.where(better, li, amin)
-        dmin = jnp.where(better, m, dmin)
-
-        # Crossing parity (`renderer_precise.rs:44-50` semantics).
-        dyinv = jnp.where(dy != 0.0, 1.0 / dy, 0.0)
-        c1 = vy <= pyc
-        cross = c1 ^ (wy <= pyc)
-        cx = vx + ey * dyinv * dx
-        hit = cross & (cx <= pxc) & ok
-        sign = jnp.where(c1, jnp.int32(1), jnp.int32(-1))
-        wn = wn + jnp.sum(
-            jnp.where(hit, sign, 0), axis=1, keepdims=True, dtype=jnp.int32
-        )
-        return dmin, amin, wn
-
-    dmin0 = jnp.full((TP, 1), _BIG, jnp.float32)
-    amin0 = jnp.full((TP, 1), _BIGI, jnp.int32)
-    wn0 = jnp.zeros((TP, 1), jnp.int32)
-    dmin, amin, wn = jax.lax.fori_loop(0, sp // SC, body, (dmin0, amin0, wn0))
-
-    d2_ref[0] = dmin.reshape(TP // 128, 128)
-    wn_ref[0] = wn.reshape(TP // 128, 128)
-    am_ref[0] = amin.reshape(TP // 128, 128)
-
-
-def _bwd_kernel(meta_ref, segt_ref, am_ref, gd_ref, dsegt_ref, *, pp: int):
-    """Backward: grid (B, Sp//SC). Each program owns one segment chunk
-    and loops every 128-pixel lane group of its glyph, accumulating the
-    four (SC, 1) endpoint-cotangent columns.
-
-    Orientation is the *transpose* of the forward: segments ride
-    sublanes as (SC, 1) columns (``segt_ref`` [1, Sp, 128] keeps the
-    four endpoint components on lanes 0-3, so column loads are natural
-    slices), pixels ride lanes as (1, 128) rows (``am_ref``/``gd_ref``
-    [1, Pp//128, 128] are plain reshapes of the flat pixel axis). Every
-    operand lands in its natural layout — no cross-lane relayouts,
-    which the Mosaic lowering rejects. ``gd_ref`` carries the pixel
-    cotangent of min-d² (zeroed for padded pixels by the wrapper);
-    ``am_ref`` the forward's argmin lanes — membership is an integer
-    compare, immune to float drift between the two kernels."""
-    b = pl.program_id(0)
-    s = pl.program_id(1)
-    x0 = meta_ref[b, 0]
-    y0 = meta_ref[b, 1]
-    w = meta_ref[b, 2]
-    h = meta_ref[b, 3]
-    off = s * SC
-
-    vx = segt_ref[0, pl.ds(off, SC), 0:1]
-    vy = segt_ref[0, pl.ds(off, SC), 1:2]
-    wx = segt_ref[0, pl.ds(off, SC), 2:3]
-    wy = segt_ref[0, pl.ds(off, SC), 3:4]
-    seg_ids = off + jax.lax.broadcasted_iota(jnp.int32, (SC, 1), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-
-    ws = jnp.maximum(w, 1)
-    fws = ws.astype(jnp.float32)
-
-    def body(ct, acc):
-        avx, avy, awx, awy = acc
-        i = ct * 128 + lane
-        row = jnp.floor((i.astype(jnp.float32) + 0.5) / fws).astype(jnp.int32)
-        x = i - row * ws
-        y = h - 1 - row
-        pxc = x0.astype(jnp.float32) + x.astype(jnp.float32) + 0.5
-        pyc = y0.astype(jnp.float32) + y.astype(jnp.float32) + 0.5
-
-        tc, qx, qy, _d2, *_ = _pair_terms(pxc, pyc, vx, vy, wx, wy)
-
-        amin = am_ref[0, pl.ds(ct, 1), :]
-        g = gd_ref[0, pl.ds(ct, 1), :]
-
-        coeff = jnp.where(amin == seg_ids, g, 0.0)
-        gqx = 2.0 * qx * coeff
-        gqy = 2.0 * qy * coeff
-        avx = avx + jnp.sum(gqx * (tc - 1.0), axis=1, keepdims=True)
-        avy = avy + jnp.sum(gqy * (tc - 1.0), axis=1, keepdims=True)
-        awx = awx - jnp.sum(gqx * tc, axis=1, keepdims=True)
-        awy = awy - jnp.sum(gqy * tc, axis=1, keepdims=True)
-        return avx, avy, awx, awy
-
-    z = jnp.zeros((SC, 1), jnp.float32)
-    avx, avy, awx, awy = jax.lax.fori_loop(0, pp // 128, body, (z, z, z, z))
-
-    dsegt_ref[0] = jnp.where(
-        lane == 0,
-        avx,
-        jnp.where(lane == 1, avy, jnp.where(lane == 2, awx, jnp.where(lane == 3, awy, 0.0))),
-    )
-
-
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def _run_fwd(segc, mask3, meta_i, Pp: int, Sp: int, interpret: bool):
-    """pallas_call wrapper: segc [B,4,Sp], mask3 [B,1,Sp], meta_i [B,8].
-    Returns (dmin2 [B,Pp], wn [B,Pp] i32, amin [B,Pp] i32)."""
-    B = segc.shape[0]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B, Pp // TP),
-        in_specs=[
-            pl.BlockSpec((1, 4, Sp), lambda b, pt, meta: (b, 0, 0)),
-            pl.BlockSpec((1, 1, Sp), lambda b, pt, meta: (b, 0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, TP // 128, 128), lambda b, pt, meta: (b, pt, 0)),
-            pl.BlockSpec((1, TP // 128, 128), lambda b, pt, meta: (b, pt, 0)),
-            pl.BlockSpec((1, TP // 128, 128), lambda b, pt, meta: (b, pt, 0)),
-        ],
-    )
-    shp = (B, Pp // 128, 128)
-    d2, wn, am = pl.pallas_call(
-        functools.partial(_fwd_kernel, sp=Sp),
-        out_shape=[
-            jax.ShapeDtypeStruct(shp, jnp.float32),
-            jax.ShapeDtypeStruct(shp, jnp.int32),
-            jax.ShapeDtypeStruct(shp, jnp.int32),
-        ],
-        grid_spec=grid_spec,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=34 * B * Pp * Sp,
-            bytes_accessed=B * (4 * Sp + 3 * Pp) * 4,
-            transcendentals=0,
-        ),
-    )(meta_i, segc, mask3)
-    return d2.reshape(B, Pp), wn.reshape(B, Pp), am.reshape(B, Pp)
-
-
-def _run_bwd(segt, meta_i, am, gd, Pp: int, Sp: int, interpret: bool):
-    """pallas_call wrapper for the backward kernel. ``segt`` is the
-    lane-padded [B, Sp, 128] segment tensor (endpoint components on
-    lanes 0-3). Returns dsegt [B, Sp, 128] — cotangents on the same
-    lanes 0-3."""
-    B = segt.shape[0]
-    am3 = am.reshape(B, Pp // 128, 128)
-    gd3 = gd.reshape(B, Pp // 128, 128)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B, Sp // SC),
-        in_specs=[
-            pl.BlockSpec((1, Sp, 128), lambda b, s, meta: (b, 0, 0)),
-            pl.BlockSpec((1, Pp // 128, 128), lambda b, s, meta: (b, 0, 0)),
-            pl.BlockSpec((1, Pp // 128, 128), lambda b, s, meta: (b, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, SC, 128), lambda b, s, meta: (b, s, 0)),
-    )
-    dsegt = pl.pallas_call(
-        functools.partial(_bwd_kernel, pp=Pp),
-        out_shape=jax.ShapeDtypeStruct((B, Sp, 128), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=40 * B * Pp * Sp,
-            bytes_accessed=B * (128 * Sp + 2 * Pp) * 4,
-            transcendentals=0,
-        ),
-    )(meta_i, segt, am3, gd3)
-    return dsegt
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3))
-def _min_d2_wn(Pp: int, Sp: int, P: int, interpret: bool, segs, mask, meta):
-    """Padded primitive: segs [B, Sp, 4] f32 (vx, vy, wx, wy), mask
-    [B, Sp] f32, meta [B, 8] f32 (x0, y0, w, h, …). Returns
-    (dmin2 [B, P] f32, wn [B, P] i32) for the first P flat pixels."""
-    (d2, wn), _ = _min_d2_wn_fwd(Pp, Sp, P, interpret, segs, mask, meta)
-    return d2, wn
-
-
-def _min_d2_wn_fwd(Pp, Sp, P, interpret, segs, mask, meta):
-    segc = jnp.transpose(segs, (0, 2, 1))  # [B, 4, Sp]
-    mask3 = mask[:, None, :].astype(jnp.float32)
-    meta_i = meta.astype(jnp.int32)
-    d2, wn, am = _run_fwd(segc, mask3, meta_i, Pp, Sp, interpret)
-    out = (d2[:, :P], wn[:, :P])
-    return out, (segs, meta_i, am)
-
-
-def _min_d2_wn_bwd(Pp, Sp, P, interpret, res, cts):
-    segs, meta_i, am = res
-    g_d2, _g_wn = cts  # winding is integer-valued: no cotangent
-    B = segs.shape[0]
-    gd = jnp.zeros((B, Pp), jnp.float32).at[:, :P].set(g_d2)
-    segt = jnp.pad(segs, ((0, 0), (0, 0), (0, 128 - 4)))  # [B, Sp, 128]
-    dsegt = _run_bwd(segt, meta_i, am, gd, Pp, Sp, interpret)
-    dsegs = dsegt[:, :, :4]  # [B, Sp, 4]
-    return dsegs, jnp.zeros((B, Sp), jnp.float32), jnp.zeros_like(meta_i, jnp.float32)
-
-
-_min_d2_wn.defvjp(_min_d2_wn_fwd, _min_d2_wn_bwd)
-
-
-def signed_field_pallas(segs, mask, meta, P: int, interpret: bool | None = None):
-    """Differentiable signed-distance field on the Pallas kernels.
-
-    segs [B, S, 4] f32 (vx, vy, wx, wy per segment), mask [B, S]
-    (nonzero = live), meta [B, >=4] (x0, y0, w, h per glyph; any
-    numeric dtype), P = pixels per glyph (flat PBF order; entries
-    beyond w·h are finite garbage — mask them in the loss, their
-    cotangents contribute nothing). Returns sd [B, P] f32 —
-    negative inside, gradients w.r.t. ``segs`` via the custom VJP; the
-    winding sign carries no gradient (`stop_gradient`, as in
-    `models.glyph_model.sdf_field`)."""
-    if interpret is None:
-        from .sdf_pallas import default_interpret
-
-        interpret = default_interpret()
-    B, S, _ = segs.shape
-    Sp = max(_round_up(S, SC), SC)
-    Pp = max(_round_up(P, TP), TP)
-    segs = segs.astype(jnp.float32)
-    if Sp != S:
-        segs = jnp.pad(segs, ((0, 0), (0, Sp - S), (0, 0)))
-        mask = jnp.pad(mask.astype(jnp.float32), ((0, 0), (0, Sp - S)))
-    mask = mask.astype(jnp.float32)
-    m8 = jnp.zeros((B, 8), jnp.float32).at[:, : meta.shape[1]].set(
-        meta.astype(jnp.float32)
-    )
-    d2, wn = _min_d2_wn(Pp, Sp, P, bool(interpret), segs, mask, m8)
-    d = jnp.sqrt(jnp.maximum(d2, 1e-12))
-    sgn = jnp.where(wn != 0, -1.0, 1.0)
-    return jax.lax.stop_gradient(sgn) * d
-
-
-# -- flat-layout differentiable field (round 3) -------------------------
-#
-# The padded [B, Sp] pair above pays B·Sp·Pp work; the production
-# forward long since moved to the flat point-chain/tile-table layout
-# (Σ_g s_g·p_g work, `ops/sdf_pallas._sdf_kernel_tiles_pts`). This path
-# brings the differentiable pair to the same standard with a simpler
-# factorization: the kernel is only an ORACLE for (argmin lane, winding)
-# — by the envelope theorem the hard min's gradient flows solely to the
-# argmin segment — and the O(P) differentiable recompute outside the
-# kernel (gather the argmin segment per pixel, redo the projection in
-# the exact kernel op order) carries both the value (bitwise equal) and
-# the autodiff. Reverse mode is then a gather-transpose scatter-add of
-# O(P) cotangents — no O(P·S) backward kernel at all.
+from .sdf_jax import _BIG, _BIGI
 
 
 def signed_field_flat(
     pts: jnp.ndarray,
     mask_words,
     tmeta,
-    TP: int = 256,
-    L_max: int = 1024,
-    interpret: bool | None = None,
+    TP: int,
+    L_max: int,
+    impl: str,
 ) -> jnp.ndarray:
     """Differentiable signed-distance field over the flat point-chain
     layout.
 
     pts [2, N] f32 (live parameters; segment i = points (i, i+1) where
-    the mask bit is set), mask_words [N//32] i32, tmeta [T_pad, 8] i32
+    the mask bit is set), mask_words [N//32] i32, tmeta [T, 8] i32
     row-major tile table (`models.fitting.build_flat_plan`), L_max =
-    jnp-twin slice window. Returns sd [T_pad, TP] f32 — negative
+    the reference's lane window, ``impl`` = `utils.device.tile_impl` of
+    the platform the arrays live on. Returns sd [T, TP] f32 — negative
     inside; rows of padding tiles are garbage (mask them). Gradients
     flow to ``pts`` through the argmin recompute; the winding sign is
     piecewise constant (int — no cotangent by construction).
     """
-    if interpret is None:
-        from .sdf_pallas import default_interpret
+    from .tiles import min_field
 
-        interpret = default_interpret()
-    if not interpret:
-        # On real TPU the reverse pass goes through the Pallas backward
-        # reduction (`_min_field_bwd_pallas`) — the XLA autodiff of the
-        # gather-recompute below lowers its per-element gathers and
-        # scatter-adds to the scalar core at ~25-30 ns/element, 10× the
-        # forward kernel on full-font fits.
-        return _signed_field_flat_tpu(pts, mask_words, tmeta, TP)
     N = pts.shape[1]
     pts_ng = jax.lax.stop_gradient(pts)
-    from .sdf_jax import min_field_pts_jax
-
-    d2k, wn, am = min_field_pts_jax(pts_ng, mask_words, tmeta, TP, L_max)
+    d2k, wn, am = min_field(pts_ng, mask_words, tmeta, TP, L_max, impl)
     del d2k  # value comes from the bitwise-equal recompute below
 
     sentinel = am == _BIGI
     a = jnp.clip(am, 0, N - 2)
-    v = jnp.take(pts, a, axis=1)  # [2, T_pad, TP]
+    v = jnp.take(pts, a, axis=1)  # [2, T, TP]
     w = jnp.take(pts, a + 1, axis=1)
 
-    # Pixel centers, same decomposition as the kernels.
+    # Pixel centers, same decomposition as the tile field.
     tm = tmeta.astype(jnp.int32)
     x0 = tm[:, 0:1]
     y0 = tm[:, 1:2]
@@ -440,7 +86,7 @@ def signed_field_flat(
     pxc = x0.astype(jnp.float32) + x.astype(jnp.float32) + 0.5
     pyc = y0.astype(jnp.float32) + y.astype(jnp.float32) + 0.5
 
-    # The kernel's exact projection op order (bitwise-equal d²).
+    # The tile field's exact projection op order (bitwise-equal d²).
     vx, vy = v[0], v[1]
     wx, wy = w[0], w[1]
     dx = wx - vx
@@ -461,219 +107,3 @@ def signed_field_flat(
     d = jnp.sqrt(jnp.maximum(d2, 1e-12))
     sgn = jnp.where(wn != 0, -1.0, 1.0)
     return sgn * d
-
-
-# -- Pallas backward reduction (round 3, after measurement) -------------
-#
-# The gather-recompute backward above is O(P) in FLOPs but its XLA
-# lowering runs every per-element gather/scatter on the TPU *scalar
-# core* (~25-30 ns/element measured) — 100+ ms on a full-font fit
-# step, 10× the forward kernel. This kernel does the same reduction on
-# the VPU: it revisits every (pixel row, segment chunk) pair of the
-# forward's tile table, recomputes the projection terms (cheaper than
-# shipping them), masks by `argmin lane == lane` (exact integer-valued
-# f32 compare, immune to float drift), and accumulates per-lane sums
-# A = Σ 2·q·ct and B = Σ 2·q·ct·tc — from which both endpoint
-# cotangents follow (dv = B − A = Σ 2q·ct·(tc−1) at the segment's
-# start point, dw = −B = Σ −2q·ct·tc at its end point).
-#
-# Layouts: same as the forward tile kernel — segment chunks ride LANES
-# as (1, SC) rows of the lane-major resident X/Y arrays (the w
-# endpoint is the v row lane-rolled by one with the next row's first
-# lane patched in), and the four accumulator outputs [M, SC] stay
-# VMEM-resident across the whole sequential grid, written at dynamic
-# SUBLANE offsets (lane offsets would need static 128-alignment). The
-# per-pixel argmin/cotangent arrive lane-major [T, TP//128, 128]; the
-# kernel transposes each tile's rows into (128, 1) pixel columns with
-# ONE small MXU identity matmul (f32 dot — argmin lane ids < 2²⁴ are
-# exact in f32), pairing (128 pixels × SC segments) per VPU step.
-
-
-def _bwd_kernel_flat(
-    tmeta_ref, X_ref, Y_ref, am_ref, ct_ref,
-    ax_ref, ay_ref, bx_ref, by_ref, *, tp: int, m: int
-):
-    from .sdf_pallas import BT
-
-    b = pl.program_id(0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, SC), 1)
-    sub128 = jax.lax.broadcasted_iota(jnp.int32, (128, 1), 0)
-    flane = lane.astype(jnp.float32)
-
-    @pl.when(b == 0)
-    def _init():
-        z = jnp.zeros((m, SC), jnp.float32)
-        ax_ref[...] = z
-        ay_ref[...] = z
-        bx_ref[...] = z
-        by_ref[...] = z
-
-    eye = (
-        jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-        == jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-    ).astype(jnp.float32)
-
-    for bi in range(BT):
-        t = b * BT + bi
-        x0 = tmeta_ref[0, t]
-        y0 = tmeta_ref[1, t]
-        w = tmeta_ref[2, t]
-        h = tmeta_ref[3, t]
-        npts = tmeta_ref[4, t]
-        off = tmeta_ref[5, t]
-        base = tmeta_ref[6, t]
-
-        @pl.when(base < w * h)
-        def _tile(bi=bi, x0=x0, y0=y0, w=w, h=h, npts=npts, off=off, base=base):
-            npix = w * h
-            ws = jnp.maximum(w, 1)
-            fws = ws.astype(jnp.float32)
-            c0 = jax.lax.div(off, jnp.int32(SC))
-            rem = off - c0 * SC
-            nch = jax.lax.div(
-                rem + jnp.maximum(npts - 1, 0) + jnp.int32(SC - 1),
-                jnp.int32(SC),
-            )
-            nch = jnp.maximum(nch, 1)
-
-            # (tp//128 + tp//128, 128) rows → (128, rows) pixel columns.
-            packed = jnp.concatenate(
-                [am_ref[bi].astype(jnp.float32), ct_ref[bi]], axis=0
-            )
-            pT = jax.lax.dot_general(
-                eye, packed, (((1,), (1,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST,
-            )  # (128, 2·tp//128)
-
-            for ri in range(tp // 128):
-                am_col = pT[:, ri : ri + 1]
-                ct_col = pT[:, tp // 128 + ri : tp // 128 + ri + 1]
-                i = base + ri * 128 + sub128
-                row = jnp.floor(
-                    (i.astype(jnp.float32) + 0.5) / fws
-                ).astype(jnp.int32)
-                x = i - row * ws
-                y = h - 1 - row
-                pxc = x0.astype(jnp.float32) + x.astype(jnp.float32) + 0.5
-                pyc = y0.astype(jnp.float32) + y.astype(jnp.float32) + 0.5
-                g2 = jnp.where(i < npix, ct_col, 0.0)
-
-                def chunk(ci, _):
-                    c = c0 + ci
-                    vx = X_ref[pl.ds(c, 1), :]
-                    vy = Y_ref[pl.ds(c, 1), :]
-                    nx0 = X_ref[pl.ds(c + 1, 1), 0:1]
-                    ny0 = Y_ref[pl.ds(c + 1, 1), 0:1]
-                    wx = jnp.where(
-                        lane == SC - 1, nx0, pltpu.roll(vx, SC - 1, 1)
-                    )
-                    wy = jnp.where(
-                        lane == SC - 1, ny0, pltpu.roll(vy, SC - 1, 1)
-                    )
-
-                    lane_abs = (c * SC).astype(jnp.float32) + flane
-                    sel = lane_abs == am_col  # (128, SC)
-
-                    # Shared helper pins the op order to the forward
-                    # oracle's exactly (gradient correctness depends on
-                    # tc/q matching the argmin recompute); the unused
-                    # d2 is dead code Mosaic eliminates.
-                    tc, qx, qy, _d2, *_ = _pair_terms(
-                        pxc, pyc, vx, vy, wx, wy
-                    )
-
-                    gq = jnp.where(sel, 2.0 * g2, 0.0)
-                    gqx = gq * qx
-                    gqy = gq * qy
-                    ax_ref[pl.ds(c, 1), :] += jnp.sum(
-                        gqx, axis=0, keepdims=True
-                    )
-                    ay_ref[pl.ds(c, 1), :] += jnp.sum(
-                        gqy, axis=0, keepdims=True
-                    )
-                    bx_ref[pl.ds(c, 1), :] += jnp.sum(
-                        gqx * tc, axis=0, keepdims=True
-                    )
-                    by_ref[pl.ds(c, 1), :] += jnp.sum(
-                        gqy * tc, axis=0, keepdims=True
-                    )
-                    return 0
-
-                jax.lax.fori_loop(0, nch, chunk, 0)
-
-
-@functools.partial(jax.jit, static_argnames=("TP",))
-def _min_field_bwd_pallas(pts, am, ct_d2, tmetaT, TP: int = 256):
-    """Backward reduction on TPU: returns dpts [2, N]."""
-    from .sdf_pallas import BT
-
-    N = pts.shape[1]
-    # The kernel matches argmin lane ids in f32 (the MXU column
-    # transpose); f32 is exact only below 2^24, so an oversized batch
-    # would silently corrupt gradients rather than fail.
-    assert N < (1 << 24), f"flat lane count {N} exceeds f32-exact range"
-    M = N // SC
-    T = tmetaT.shape[1]
-    X = pts[0].reshape(M, SC)
-    Y = pts[1].reshape(M, SC)
-    am3 = am.reshape(T, TP // 128, 128)
-    ct3 = ct_d2.reshape(T, TP // 128, 128)
-
-    resident = pl.BlockSpec((M, SC), lambda b, tmeta: (0, 0))
-    tile_in = pl.BlockSpec((BT, TP // 128, 128), lambda b, tmeta: (b, 0, 0))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(T // BT,),
-        in_specs=[resident, resident, tile_in, tile_in],
-        out_specs=[resident] * 4,
-    )
-    shp = (M, SC)
-    ax, ay, bx, by = pl.pallas_call(
-        functools.partial(_bwd_kernel_flat, tp=TP, m=M),
-        out_shape=[jax.ShapeDtypeStruct(shp, jnp.float32)] * 4,
-        grid_spec=grid_spec,
-        cost_estimate=pl.CostEstimate(
-            flops=40 * T * TP * 512,
-            bytes_accessed=2 * N * 4 + 2 * T * TP * 4 + 4 * N * 4,
-            transcendentals=0,
-        ),
-    )(tmetaT, X, Y, am3, ct3)
-
-    # dv = B − A at the segment's lane; dw = −B lands on the NEXT point.
-    dvx = (bx - ax).reshape(N)
-    dvy = (by - ay).reshape(N)
-    dwx = -bx.reshape(N)
-    dwy = -by.reshape(N)
-    zero = jnp.zeros((1,), jnp.float32)
-    dx = dvx + jnp.concatenate([zero, dwx[:-1]])
-    dy = dvy + jnp.concatenate([zero, dwy[:-1]])
-    return jnp.stack([dx, dy])
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def _signed_field_flat_tpu(pts, mask_words, tmeta, TP):
-    sd, _res = _signed_field_flat_tpu_fwd(pts, mask_words, tmeta, TP)
-    return sd
-
-
-def _signed_field_flat_tpu_fwd(pts, mask_words, tmeta, TP):
-    from .sdf_pallas import min_field_pallas_pts
-
-    tmetaT = jnp.transpose(tmeta)
-    d2k, wn, am = min_field_pallas_pts(pts, mask_words, tmetaT, TP)
-    d = jnp.sqrt(jnp.maximum(d2k, 1e-12))
-    sgn = jnp.where(wn != 0, -1.0, 1.0)
-    return sgn * d, (pts, am, d, sgn, tmetaT)
-
-
-def _signed_field_flat_tpu_bwd(TP, res, ct_sd):
-    pts, am, d, sgn, tmetaT = res
-    # Chain through sd = sgn·sqrt(d²): ∂sd/∂d² = sgn/(2d). Pixels with
-    # no live segment carry d² = _BIG — their (masked) cotangents still
-    # meet a finite 1/d.
-    ct_d2 = ct_sd * sgn * (0.5 / d)
-    dpts = _min_field_bwd_pallas(pts, am, ct_d2, tmetaT, TP)
-    return dpts, None, None
-
-
-_signed_field_flat_tpu.defvjp(_signed_field_flat_tpu_fwd, _signed_field_flat_tpu_bwd)

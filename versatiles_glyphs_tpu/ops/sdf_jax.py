@@ -1,7 +1,8 @@
 """Batched, jittable, differentiable SDF evaluation in pure JAX.
 
-This is the XLA-compiled semantics twin of the Pallas kernel
-(`ops/sdf_pallas.py`) and the autodiff path of the framework. It
+This is the plain reference of the Hopper tile kernel
+(`ops/sdf_triton.py`), the CPU execution path, and the autodiff path
+of the framework. It
 evaluates, for a batch of glyphs, the per-pixel signed distance to a
 padded segment soup plus the winding-number sign — the same math as the
 reference hot loop (`/root/reference/src/render/renderer_precise.rs`)
@@ -35,6 +36,7 @@ from ..constants import CUTOFF, SDF_RADIUS
 VX, VY, DX, DY, L2INV, DYINV, WY, _SPARE = range(8)
 
 _BIG = 3.0e38  # ~f32 max; stands in for +inf distance of masked segments
+_BIGI = 2147483647  # i32 max: argmin sentinel where no segment is live
 
 
 def pixel_coords(meta: jnp.ndarray, P: int):
@@ -124,9 +126,7 @@ def _field_one_flat(flat, meta, P: int, S_max: int):
     """Signed distance field for one glyph from the kernel's flat
     segment layout: flat [4, N] f32 (vx, vy, wx, wy rows), meta [8] i32
     (x0, y0, w, h, nseg, seg_off, _, _). Derived components are
-    computed in f32 exactly as the Pallas kernel does, so this is its
-    bit-equivalent twin (the off-TPU execution path and the autodiff
-    reference for the flat layout)."""
+    computed in f32 in the same op order as the tile paths."""
     px, py, _ = pixel_coords(meta, P)
     nseg = meta[4]
     off = meta[5]
@@ -171,8 +171,7 @@ def _field_one_flat(flat, meta, P: int, S_max: int):
 def _field_tile_flat(flat, tmeta, TP: int, S_max: int):
     """Signed distances for one tile row of the flat tile table:
     tmeta [8] i32 = x0, y0, w, h, nseg, seg_off, pix_base, _ (see
-    `render.batch.plan_tiles`). Bit-equivalent jnp twin of the Pallas
-    tile kernel (`ops.legacy._sdf_kernel_tiles`)."""
+    `render.batch.plan_tiles`) over the 4-row flat segment layout."""
     x0, y0, w, h = tmeta[0], tmeta[1], tmeta[2], tmeta[3]
     nseg, off, base = tmeta[4], tmeta[5], tmeta[6]
 
@@ -209,7 +208,7 @@ def _field_tile_flat(flat, tmeta, TP: int, S_max: int):
     d2 = jnp.where(seg_ok, d2, _BIG)
     dmin2 = jnp.min(d2, axis=1)
 
-    # Same crossing-parity form as the Pallas tile kernel.
+    # Same crossing-parity form as the point-chain tile paths.
     c1 = vy <= pyc
     cross = c1 ^ (wy <= pyc)
     tcr = ey * dyinv
@@ -226,10 +225,10 @@ def _field_tile_flat(flat, tmeta, TP: int, S_max: int):
 
 def _field_tile_pts(pts, mask_words, tmeta, TP: int, L_max: int):
     """Signed distances for one tile row of the point-chain layout:
-    tmeta [8] i32 = x0, y0, w, h, npts, off, pix_base, _. Bit-equivalent
-    jnp twin of `ops/sdf_pallas._sdf_kernel_tiles_pts` (segment i =
-    points (i, i+1), valid iff mask bit i is set and i in
-    [off, off+npts-1))."""
+    tmeta [8] i32 = x0, y0, w, h, npts, off, pix_base, _. The plain
+    reference of `ops/sdf_triton._tile_kernel` (segment i = points
+    (i, i+1), valid iff mask bit i is set and i in [off, off+npts-1)),
+    over a fixed window of L_max segments."""
     x0, y0, w, h = tmeta[0], tmeta[1], tmeta[2], tmeta[3]
     npts, off, base = tmeta[4], tmeta[5], tmeta[6]
 
@@ -291,13 +290,16 @@ def _field_tile_pts(pts, mask_words, tmeta, TP: int, L_max: int):
     return jnp.where(base < w * h, sd, _BIG)
 
 
-@functools.partial(jax.jit, static_argnames=("TP", "L_max"))
-def render_bitmaps_pts_jax(pts, mask_words, tmeta, TP: int, L_max: int):
+@functools.partial(jax.jit, static_argnames=("TP", "L_max", "batch_size"))
+def render_bitmaps_pts_jax(
+    pts, mask_words, tmeta, TP: int, L_max: int, batch_size: int | None = None
+):
     """Quantized uint8 bitmaps [T, TP] from the point-chain layout
-    (same inputs/output as `ops.sdf_pallas.render_bitmaps_pallas_pts`,
-    including the i16 fixed-point transport, except tmeta here is
-    row-major [T, 8]). The caller must guarantee
-    ``off + L_max + 1 <= N`` for every row (pack_points slack)."""
+    (same inputs/output as `ops.sdf_triton.render_tiles`, plus the i16
+    fixed-point transport). The caller must guarantee
+    ``off + L_max + 1 <= N`` for every row (pack_points slack).
+    ``batch_size`` tiles are evaluated per `lax.map` step (default one:
+    the memory-safe sequential map)."""
     if pts.dtype == jnp.int16:
         from ..render.metrics import Q16_SCALE
 
@@ -308,15 +310,15 @@ def render_bitmaps_pts_jax(pts, mask_words, tmeta, TP: int, L_max: int):
     def one(m):
         return quantize_sdf(_field_tile_pts(pts, mask_words, m, TP, L_max))
 
-    return jax.lax.map(one, tmeta)
+    return jax.lax.map(one, tmeta, batch_size=batch_size)
 
 
 @functools.partial(jax.jit, static_argnames=("TP", "S_max"))
 def render_bitmaps_tiles_jax(flat, tmeta, TP: int, S_max: int):
-    """Quantized uint8 bitmaps [T, TP] from the flat tile table (same
-    inputs/output as `ops.legacy.render_bitmaps_pallas_tiles`).
-    Sequential over tiles to bound the [TP, S_max] temporary. The
-    caller must guarantee ``seg_off + S_max <= N`` for every row."""
+    """Quantized uint8 bitmaps [T, TP] from the flat tile table over
+    the 4-row segment layout. Sequential over tiles to bound the
+    [TP, S_max] temporary. The caller must guarantee
+    ``seg_off + S_max <= N`` for every row."""
     flat = flat.astype(jnp.float32)
     tmeta = tmeta.astype(jnp.int32)
 
@@ -328,9 +330,8 @@ def render_bitmaps_tiles_jax(flat, tmeta, TP: int, S_max: int):
 
 @functools.partial(jax.jit, static_argnames=("P", "S_max"))
 def render_bitmaps_flat_jax(flat, meta, P: int, S_max: int):
-    """Quantized uint8 bitmaps [G, P] from the flat segment layout
-    (same inputs as the Pallas kernel). Sequential over glyphs to bound
-    the [P, S_max] temporary. The caller must guarantee
+    """Quantized uint8 bitmaps [G, P] from the flat segment layout.
+    Sequential over glyphs to bound the [P, S_max] temporary. The caller must guarantee
     ``seg_off + S_max <= N`` for every glyph (pad the flat array)."""
     flat = flat.astype(jnp.float32)
     meta = meta.astype(jnp.int32)
@@ -358,11 +359,9 @@ def render_bitmaps_jax(segs, meta, P: int, sequential: bool = True):
 def _min_field_tile_pts(pts, mask_words, tmeta, TP: int, L_max: int):
     """Residual twin of `_field_tile_pts` for the differentiable path:
     returns (min-d², winding, global argmin lane) for one tile row —
-    bit-equivalent to `ops.sdf_pallas._sdf_kernel_tiles_pts_min`
-    (first-argmin tie rule; `_BIGI` sentinel where no live segment;
-    skip tiles all-zero)."""
-    from .sdf_pallas import _BIGI
-
+    the reference of the kernel's residual mode (first-argmin tie
+    rule; `_BIGI` sentinel where no live segment; skip tiles
+    all-zero)."""
     x0, y0, w, h = tmeta[0], tmeta[1], tmeta[2], tmeta[3]
     npts, off, base = tmeta[4], tmeta[5], tmeta[6]
 
@@ -431,16 +430,17 @@ def _min_field_tile_pts(pts, mask_words, tmeta, TP: int, L_max: int):
     )
 
 
-@functools.partial(jax.jit, static_argnames=("TP", "L_max"))
-def min_field_pts_jax(pts, mask_words, tmeta, TP: int, L_max: int):
+@functools.partial(jax.jit, static_argnames=("TP", "L_max", "batch_size"))
+def min_field_pts_jax(
+    pts, mask_words, tmeta, TP: int, L_max: int, batch_size: int | None = None
+):
     """Min-distance residuals from the point-chain layout (same
-    contract as `ops.sdf_pallas.min_field_pallas_pts`, except tmeta
-    here is row-major [T, 8]). Returns (dmin2 [T, TP] f32, wn [T, TP]
-    i32, amin [T, TP] i32)."""
+    contract as `ops.sdf_triton.min_field_tiles`). Returns (dmin2
+    [T, TP] f32, wn [T, TP] i32, amin [T, TP] i32)."""
     pts = pts.astype(jnp.float32)
     tmeta = tmeta.astype(jnp.int32)
 
     def one(m):
         return _min_field_tile_pts(pts, mask_words, m, TP, L_max)
 
-    return jax.lax.map(one, tmeta)
+    return jax.lax.map(one, tmeta, batch_size=batch_size)

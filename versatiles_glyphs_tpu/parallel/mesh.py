@@ -2,18 +2,18 @@
 
 The reference's single parallelism axis is rayon data-parallelism over
 the flat (font, block) task list (`/root/reference/src/font/manager.rs:
-102-121`). The TPU-native equivalent: glyph batches sharded over a 1-D
+102-121`). The device equivalent: glyph batches sharded over a 1-D
 ``Mesh(('data',))`` with `NamedSharding`; XLA inserts the collectives.
-Within a chip, the Pallas grid over (glyph, pixel-tile) is the
-fine-grained axis (the reference has no counterpart — its unit of work
-is a whole block on one core).
+The mesh follows the algorithm alone (every device of the host reaches
+every other). Within a device, the kernel grid over tile-table rows is
+the fine-grained axis (the reference has no counterpart — its unit of
+work is a whole block on one core).
 
 Multi-host: one process per host via `jax.distributed.initialize`
-(standard JAX multi-controller over DCN); each host packs and writes
-only its own shard's PBFs — the writer-Mutex pattern without any
-cross-host traffic. Only fitting gradients cross hosts (`models/
-fitting.py`), riding ICI/DCN through the `psum` XLA emits for
-replicated parameters.
+(standard JAX multi-controller); each host packs and writes only its
+own shard's PBFs — the writer-Mutex pattern without any cross-host
+traffic. Only fitting gradients cross devices (`models/fitting.py`),
+through the `psum` XLA emits for replicated parameters.
 """
 
 from __future__ import annotations
@@ -57,59 +57,44 @@ def data_mesh(min_devices: int = 2) -> Mesh | None:
     """The production render mesh: every device of the effective default
     platform, or None when there's nothing to shard over (single
     device). This is what `render.driver.Renderer` consults — the
-    TPU-native stand-in for the reference's rayon pool size
+    device stand-in for the reference's rayon pool size
     (`/root/reference/src/font/manager.rs:117-121`)."""
     from ..utils.device import default_platform
 
-    try:
-        devices = jax.devices(default_platform())
-    except RuntimeError:
-        return None
+    devices = jax.devices(default_platform())
     if len(devices) < min_devices:
         return None
     return make_mesh(devices)
 
 
-def sharded_pts_render_fn(mesh: Mesh, TP: int, L_max: int, use_pallas: bool):
-    """See `_sharded_pts_render_fn`; thin wrapper normalizing ``L_max``
-    out of the compile cache key on the Pallas branch (which never
-    reads it — the kernel windows by its own chunk counts), so a
-    changed lane bucket alone cannot force a fresh multi-second XLA
-    compile on TPU."""
+def sharded_pts_render_fn(mesh: Mesh, TP: int, L_max: int, impl: str):
+    """Compiled D-way data-parallel render over the point-chain layout.
+
+    Returns ``fn(pts_st [D,2,N], words_st [D,Nw], tm_st [D,T,8]) ->
+    [D, T, TP] uint8`` where every leading axis is sharded over the
+    mesh's single axis: each device renders its own glyph group with
+    the tile field ``impl`` (`utils.device.tile_impl`) — the
+    reference's rayon fan-out over the flat block task list
+    (`manager.rs:102-121`) mapped onto devices. No collectives: block
+    rendering is embarrassingly parallel; results land sharded and the
+    host fetches each shard.
+    """
     return _sharded_pts_render_fn(
-        mesh, TP, 0 if use_pallas else L_max, use_pallas
+        mesh, TP, L_max if impl == "reference" else 0, impl
     )
 
 
 @functools.lru_cache(maxsize=None)
-def _sharded_pts_render_fn(mesh: Mesh, TP: int, L_max: int, use_pallas: bool):
-    """Compiled D-way data-parallel render over the point-chain layout.
+def _sharded_pts_render_fn(mesh: Mesh, TP: int, L_max: int, impl: str):
+    from ..ops.tiles import render_pts
 
-    Returns ``fn(pts_st [D,2,N], words_st [D,Nw], tmT_st [D,8,T]) ->
-    [D, T, TP] uint8`` where every leading axis is sharded over the
-    mesh's single axis: each device renders its own glyph group —
-    the reference's rayon fan-out over the flat block task list
-    (`manager.rs:102-121`) mapped onto chips. No collectives: block
-    rendering is embarrassingly parallel; results land sharded and the
-    host fetches each shard.
-    """
-    axis = mesh.axis_names[0]
-    spec = P(axis)
+    spec = P(mesh.axis_names[0])
 
-    if use_pallas:
-        from ..ops.sdf_pallas import render_bitmaps_pallas_pts as _render
-
-        def local(pts, words, tmT):
-            return _render(pts[0], words[0], tmT[0], TP)[None]
-    else:
-        from ..ops.sdf_jax import render_bitmaps_pts_jax as _render
-
-        def local(pts, words, tmT):
-            return _render(pts[0], words[0], tmT[0].T, TP, L_max)[None]
+    def local(pts, words, tm):
+        return render_pts(pts[0], words[0], tm[0], TP, L_max, impl)[None]
 
     # check_vma=False: pallas_call outputs carry no vma annotation, and
-    # the body is per-shard-pure (no collectives), so the check is both
-    # unsatisfiable and unnecessary.
+    # the body is per-shard-pure (no collectives).
     fn = jax.shard_map(
         local, mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec,
         check_vma=False,
@@ -118,55 +103,32 @@ def _sharded_pts_render_fn(mesh: Mesh, TP: int, L_max: int, use_pallas: bool):
 
 
 def sharded_delta_render_fn(
-    mesh: Mesh, TP: int, L_max: int, T_pad: int, use_pallas: bool
+    mesh: Mesh, TP: int, L_max: int, T_pad: int, impl: str
 ):
-    """See `_sharded_delta_render_fn`; same ``L_max`` cache-key
-    normalization as `sharded_pts_render_fn`."""
+    """Compiled D-way data-parallel render over the i8-delta wire
+    format (`render.batch.pack_points_delta` per shard, stacked on a
+    sharded leading axis): each device decodes its own shard and
+    renders it through `ops.tiles.render_delta`, the single-device
+    entry point, so the two paths cannot diverge. Returns
+    ``fn(deltas [D,2,N] i8, words [D,Nw] i32, anchors [D,3,K] i32,
+    meta [D,G,8] i32) -> [D, T_pad, TP] uint8``."""
     return _sharded_delta_render_fn(
-        mesh, TP, 0 if use_pallas else L_max, T_pad, use_pallas
+        mesh, TP, L_max if impl == "reference" else 0, T_pad, impl
     )
 
 
 @functools.lru_cache(maxsize=None)
 def _sharded_delta_render_fn(
-    mesh: Mesh, TP: int, L_max: int, T_pad: int, use_pallas: bool
+    mesh: Mesh, TP: int, L_max: int, T_pad: int, impl: str
 ):
-    """Compiled D-way data-parallel render over the i8-delta wire
-    format (`render.batch.pack_points_delta` per shard, stacked on a
-    sharded leading axis): each device decodes its own shard
-    (`ops.sdf_pallas.reconstruct_delta` + device-derived tile table)
-    and renders it — the multi-chip twin of the single-device default
-    transport, halving host→device bytes on tunneled links. Returns
-    ``fn(deltas [D,2,N] i8, words [D,Nw] i32, anchors [D,3,K] i32,
-    meta [D,G,8] i32) -> [D, T_pad, TP] uint8``."""
-    import jax.numpy as jnp
+    from ..ops.tiles import render_delta
 
-    from ..ops.sdf_pallas import derive_tmeta, reconstruct_delta
-    from ..render.metrics import Q16_SCALE
+    spec = P(mesh.axis_names[0])
 
-    axis = mesh.axis_names[0]
-    spec = P(axis)
-
-    if use_pallas:
-        # The PUBLIC single-device entry point (decode + derived tile
-        # table + kernel, one jit — inlined when traced here), so the
-        # multi-chip path can never silently diverge from it.
-        from ..ops.sdf_pallas import render_bitmaps_pallas_delta
-
-        def local(deltas, words, anchors, meta):
-            return render_bitmaps_pallas_delta(
-                deltas[0], words[0], anchors[0], meta[0], TP, T_pad=T_pad
-            )[None]
-    else:
-        from ..ops.sdf_jax import render_bitmaps_pts_jax
-
-        def local(deltas, words, anchors, meta):
-            q = reconstruct_delta(deltas[0], anchors[0])
-            pts = q.astype(jnp.float32) * jnp.float32(1.0 / Q16_SCALE)
-            tmeta = derive_tmeta(meta[0], TP, T_pad).T
-            return render_bitmaps_pts_jax(pts, words[0], tmeta, TP, L_max)[
-                None
-            ]
+    def local(deltas, words, anchors, meta):
+        return render_delta(
+            deltas[0], words[0], anchors[0], meta[0], TP, T_pad, L_max, impl
+        )[None]
 
     fn = jax.shard_map(
         local,
@@ -182,10 +144,10 @@ def initialize_multihost(coordinator: str | None = None, **kw) -> None:
     """Join the multi-controller runtime (no-op when no coordinator is
     given — the single-process case).
 
-    On a real multi-host slice each host calls this BEFORE any other
+    On a multi-host cluster each host calls this BEFORE any other
     JAX use (`jax.distributed.initialize` must precede backend init);
-    `jax.devices()` then spans the slice and `make_mesh` shards over
-    every chip. See the module docstring for the host-local I/O rule:
+    `jax.devices()` then spans the cluster and `make_mesh` shards over
+    every device. See the module docstring for the host-local I/O rule:
     after initialization, `FontManager.render_glyphs` partitions the
     block task list by `jax.process_index()` (`partition_tasks`) so
     every host renders and writes a disjoint file set, and only process

@@ -1,53 +1,58 @@
-"""Device/platform introspection.
+"""Platform choice and the persistent compile cache.
 
-`default_platform()` is the single predicate the framework uses to
-decide between the compiled Pallas path and its jnp twin. It must look
-at the effective default *device* rather than `jax.default_backend()`:
-environments can have a TPU plugin registered (and thus a "tpu" default
-backend) while the session pins `jax_default_device` to CPU — e.g. the
-hermetic test suite.
+`default_platform()` is the platform of the effective default device.
+It looks at ``jax_default_device`` before `jax.default_backend()`: the
+test suite pins the default device to the CPU. A backend that fails to
+start is an error, not a reason to fall back.
+
+`tile_impl(platform)` is the one switch from a platform to the SDF tile
+implementation (`ops.tiles`): the Hopper kernel on a GPU, the plain jnp
+reference on a CPU, and an error anywhere else. Callers pass the
+platform of the devices their arrays or mesh live on, so nothing on a
+GPU ever runs in interpret mode or falls back to the reference.
 """
 
 from __future__ import annotations
+
+import os
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# Compile cache inside the checkout when JAX_COMPILATION_CACHE_DIR is not
+# set: a fixed path, so every run of this checkout finds it again.
+CACHE_DIR = os.path.join(_REPO, ".jax_cache")
 
 
 def default_platform() -> str:
     import jax
 
     dev = jax.config.jax_default_device
+    if isinstance(dev, str):
+        return dev
     if dev is not None:
         return dev.platform
-    try:
-        return jax.default_backend()
-    except RuntimeError:
-        # A configured accelerator plugin failed to initialize (e.g.
-        # JAX_PLATFORMS names a backend whose registration hook didn't
-        # run). Degrade to CPU rather than dying.
-        return "cpu"
+    return jax.default_backend()
 
 
-def on_tpu() -> bool:
-    return default_platform() == "tpu"
+def tile_impl(platform: str) -> str:
+    """``"kernel"`` on ``gpu``, ``"reference"`` on ``cpu``; raises
+    ValueError for any other platform."""
+    if platform == "gpu":
+        return "kernel"
+    if platform == "cpu":
+        return "reference"
+    raise ValueError(f"no SDF tile implementation for platform {platform!r}")
 
 
-def enable_compilation_cache(path: str | None = None) -> None:
-    """Enable JAX's persistent compilation cache so repeated CLI runs
-    reuse compiled kernels instead of paying the 20-40 s first-compile
-    per shape bucket. Called by the CLI entry point and bench."""
-    import os
+def enable_compilation_cache() -> str:
+    """Turn on JAX's persistent compile cache and return its directory.
 
+    If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and no
+    directory is set here; otherwise the cache lives at `CACHE_DIR`."""
     import jax
 
-    if path is None:
-        path = os.environ.get(
-            "VG_JAX_CACHE_DIR",
-            os.path.join(
-                os.path.expanduser("~"), ".cache", "versatiles_glyphs_tpu", "jax"
-            ),
-        )
-    try:
-        os.makedirs(path, exist_ok=True)
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = CACHE_DIR
         jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass  # cache is an optimization; never fail a run over it
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    return path
